@@ -1,4 +1,4 @@
-// stereoio — native image I/O + output normalizer for the TPU stereo
+// stereoio — native image I/O + output normalizer for the stereo
 // framework.
 //
 // The reference vendors the stb single-header C codecs for its image

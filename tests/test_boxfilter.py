@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stereo_matching_cuda_tpu.ops.boxfilter import (
+from stereo_matching.ops.boxfilter import (
     box_mean,
     integral_image,
     strict_mul,
     window_area,
 )
-from stereo_matching_cuda_tpu import reference as R
+from stereo_matching import reference as R
 
 
 @pytest.mark.parametrize("shape", [(288, 384), (19, 19), (1, 50), (50, 1), (7, 130)])

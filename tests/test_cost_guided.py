@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stereo_matching_cuda_tpu import ops
-from stereo_matching_cuda_tpu import reference as R
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-from stereo_matching_cuda_tpu.ops.guided import _recip_var_eps
+from stereo_matching import ops
+from stereo_matching import reference as R
+from stereo_matching.config import DEFAULT_CONFIG as CFG
+from stereo_matching.ops.guided import _recip_var_eps
 
 EXACT = dataclasses.replace(CFG, exact_integral=True)
 
@@ -110,7 +110,7 @@ def test_guided_filter_wta_exact_other_radii(gray_pair, radius):
 def test_pipeline_narrow_disparity_range_exact(gray_pair):
     """8-disparity range (d in [-7, 0]) through the oracle and the jnp
     path; exercises non-default size_d everywhere."""
-    from stereo_matching_cuda_tpu.pipeline import compute_disparity
+    from stereo_matching.pipeline import compute_disparity
 
     cfg8 = dataclasses.replace(EXACT, d_min=-7, d_max=0)
     g1, g2 = gray_pair

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-from stereo_matching_cuda_tpu.pipeline import stereo_pipeline
+from stereo_matching.config import DEFAULT_CONFIG as CFG
+from stereo_matching.pipeline import stereo_pipeline
 
 
 def test_pipeline_no_nans(small_pair):

@@ -5,9 +5,9 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from stereo_matching_cuda_tpu import ops
-from stereo_matching_cuda_tpu import reference as R
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
+from stereo_matching import ops
+from stereo_matching import reference as R
+from stereo_matching.config import DEFAULT_CONFIG as CFG
 
 # exact grayscale (correction table on) — the default fast path skips
 # the two table gathers and may be +1 on ~24 ppm of inputs
@@ -101,7 +101,7 @@ def test_config_validation():
 
     import pytest as _pytest
 
-    from stereo_matching_cuda_tpu.config import StereoConfig
+    from stereo_matching.config import StereoConfig
 
     with _pytest.raises(ValueError):
         StereoConfig(d_min=0, d_max=-1)

@@ -7,8 +7,8 @@ import zlib
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu.utils import imagefmt, png as pypng
-from stereo_matching_cuda_tpu.utils.io import read_image
+from stereo_matching.utils import imagefmt, png as pypng
+from stereo_matching.utils.io import read_image
 
 RNG = np.random.default_rng(11)
 
@@ -221,7 +221,7 @@ def test_bmp_pair_through_cli(tmp_path):
         writer(str(tmp_path / f"r.{ext}"), right)
         out = tmp_path / f"out_{ext}"
         r = subprocess.run(
-            [sys.executable, "-m", "stereo_matching_cuda_tpu",
+            [sys.executable, "-m", "stereo_matching",
              str(tmp_path / f"l.{ext}"), str(tmp_path / f"r.{ext}"),
              "-o", str(out), "--d-min", "-7", "--d-max", "0"],
             capture_output=True, text=True, env=dict(os.environ), timeout=600)
@@ -237,8 +237,8 @@ def test_corrupt_files_raise_valueerror(tmp_path):
     serve map ValueError to clean diagnostics."""
     import pytest
 
-    from stereo_matching_cuda_tpu.utils.imagefmt import read_bmp
-    from stereo_matching_cuda_tpu.utils.legacyfmt import read_gif
+    from stereo_matching.utils.imagefmt import read_bmp
+    from stereo_matching.utils.legacyfmt import read_gif
 
     short_bmp = tmp_path / "short.bmp"
     short_bmp.write_bytes(b"BM\x00\x00")          # 4-byte header

@@ -10,8 +10,8 @@ import pytest
 
 PIL = pytest.importorskip("PIL.Image")
 
-from stereo_matching_cuda_tpu.utils.jpeg import read_jpeg
-from stereo_matching_cuda_tpu.utils.io import read_image
+from stereo_matching.utils.jpeg import read_jpeg
+from stereo_matching.utils.io import read_image
 
 
 def _scene(h=97, w=133, seed=0):
@@ -156,7 +156,7 @@ def test_jpeg_pair_through_cli(tmp_path):
     PIL.fromarray(right).save(str(tmp_path / "r.jpg"), "JPEG", quality=95)
     env = dict(os.environ)
     r = subprocess.run(
-        [sys.executable, "-m", "stereo_matching_cuda_tpu",
+        [sys.executable, "-m", "stereo_matching",
          str(tmp_path / "l.jpg"), str(tmp_path / "r.jpg"),
          "-o", str(tmp_path), "--json"],
         capture_output=True, text=True, env=env)

@@ -9,8 +9,8 @@ import struct
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu.utils import imagefmt, jpeg, legacyfmt
-from stereo_matching_cuda_tpu.utils.io import read_image
+from stereo_matching.utils import imagefmt, jpeg, legacyfmt
+from stereo_matching.utils.io import read_image
 
 try:
     from PIL import Image

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from stereo_matching_cuda_tpu.metrics import (
+from stereo_matching.metrics import (
     bad_pixel_rate,
     end_point_error,
     occlusion_stats,

@@ -5,9 +5,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-from stereo_matching_cuda_tpu import reference as R
-from stereo_matching_cuda_tpu.models import BoxStereoMatcher, GuidedStereoMatcher
+from stereo_matching.config import DEFAULT_CONFIG as CFG
+from stereo_matching import reference as R
+from stereo_matching.models import BoxStereoMatcher, GuidedStereoMatcher
 
 EXACT = dataclasses.replace(CFG, exact_integral=True)
 
@@ -69,8 +69,8 @@ def test_box_d_chunk_streaming_matches_unchunked(small_pair):
 
     import jax.numpy as jnp
 
-    from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-    from stereo_matching_cuda_tpu.models.box import box_stereo_pipeline
+    from stereo_matching.config import DEFAULT_CONFIG as CFG
+    from stereo_matching.models.box import box_stereo_pipeline
 
     left, right = small_pair
     base = box_stereo_pipeline(jnp.asarray(left), jnp.asarray(right), CFG)

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu.utils import io, png as pypng
-from stereo_matching_cuda_tpu import reference as R
+from stereo_matching.utils import io, png as pypng
+from stereo_matching import reference as R
 
 from conftest import REFERENCE_DATA, requires_reference
 
@@ -60,8 +60,8 @@ def test_write_mat_normalize_constant_input():
     native codec (review r5: the C cast of NaN was UB)."""
     import numpy as np
 
-    from stereo_matching_cuda_tpu import reference as R
-    from stereo_matching_cuda_tpu.utils.io import write_mat_normalize
+    from stereo_matching import reference as R
+    from stereo_matching.utils.io import write_mat_normalize
 
     const = np.full((6, 8), 3.25, np.float32)
     np.testing.assert_array_equal(R.write_mat_normalize(const),

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from stereo_matching_cuda_tpu import ops
-from stereo_matching_cuda_tpu import reference as R
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
+from stereo_matching import ops
+from stereo_matching import reference as R
+from stereo_matching.config import DEFAULT_CONFIG as CFG
 
 
 def _random_disp(rng, h, w, lo, hi):
@@ -71,8 +71,8 @@ def test_packed_fill_equals_generic_scan(rng):
 
     import jax.numpy as jnp
 
-    from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-    from stereo_matching_cuda_tpu.ops.occlusion import fill_occlusion
+    from stereo_matching.config import DEFAULT_CONFIG as CFG
+    from stereo_matching.ops.occlusion import fill_occlusion
 
     for d_min, d_max in [(-15, 0), (-8, 8), (-127, 0)]:
         cfg = dataclasses.replace(CFG, d_min=d_min, d_max=d_max)
@@ -97,9 +97,9 @@ def test_detect_occlusion_custom_label_base():
     import numpy as np
     import jax.numpy as jnp
 
-    from stereo_matching_cuda_tpu import reference as R
-    from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-    from stereo_matching_cuda_tpu.ops.occlusion import detect_occlusion
+    from stereo_matching import reference as R
+    from stereo_matching.config import DEFAULT_CONFIG as CFG
+    from stereo_matching.ops.occlusion import detect_occlusion
 
     rng = np.random.default_rng(3)
     base = CFG.d_min_right                       # labels 0..15

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu import reference as R
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-from stereo_matching_cuda_tpu.utils.png import read_png
+from stereo_matching import reference as R
+from stereo_matching.config import DEFAULT_CONFIG as CFG
+from stereo_matching.utils.png import read_png
 
 from conftest import REFERENCE_DATA, requires_reference
 

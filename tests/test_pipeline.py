@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu import reference as R
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
-from stereo_matching_cuda_tpu.pipeline import compute_disparity
-from stereo_matching_cuda_tpu.utils.png import read_png
+from stereo_matching import reference as R
+from stereo_matching.config import DEFAULT_CONFIG as CFG
+from stereo_matching.pipeline import compute_disparity
+from stereo_matching.utils.png import read_png
 
 from conftest import REFERENCE_DATA, requires_reference
 
@@ -23,7 +23,6 @@ def oracle_tsukuba(tsukuba):
     return R.run_pipeline(left, right, CFG)
 
 
-@requires_reference
 def test_pipeline_exact_mode_bit_exact(tsukuba, oracle_tsukuba):
     left, right = tsukuba
     out = compute_disparity(left, right, EXACT, full_outputs=True)
@@ -60,7 +59,6 @@ def test_pipeline_exact_mode_matches_committed_goldens(tsukuba):
         np.testing.assert_array_equal(arr, gold, err_msg=key)
 
 
-@requires_reference
 def test_pipeline_fast_mode_near_parity(tsukuba, oracle_tsukuba):
     """Fast mode (XLA-reassociated cumsums): the disparity map may
     differ from the oracle only at exact-tie pixels — bound the count."""
@@ -83,7 +81,7 @@ def test_pipeline_small_random_exact(small_pair):
 
 def test_pipeline_batch_matches_single(small_pair):
     import jax.numpy as jnp
-    from stereo_matching_cuda_tpu.pipeline import stereo_pipeline_batch
+    from stereo_matching.pipeline import stereo_pipeline_batch
 
     left, right = small_pair
     batch_l = np.stack([left, left[:, ::-1]])
@@ -96,281 +94,11 @@ def test_pipeline_batch_matches_single(small_pair):
         np.testing.assert_array_equal(np.asarray(out[k][1]), single1[k], err_msg=k)
 
 
-def test_pipeline_batch_fused_branch_matches_single(small_pair, monkeypatch):
-    """The fused branch of stereo_pipeline_batch (a lax.map of the
-    per-frame pipeline) must equal per-frame calls bit-for-bit.  On CPU
-    the fused path is forced via use_fused_path + interpret-mode
-    pallas (same kernel code Mosaic compiles on TPU)."""
-    import jax
-    import jax.numpy as jnp
-    import jax.experimental.pallas as pl
-
-    from stereo_matching_cuda_tpu import pipeline as P
-
-    if jax.default_backend() != "tpu":
-        orig = pl.pallas_call
-
-        def interp(*a, **k):
-            k.setdefault("interpret", True)
-            return orig(*a, **k)
-
-        monkeypatch.setattr(pl, "pallas_call", interp)
-        monkeypatch.setattr(
-            P, "use_fused_path",
-            lambda cfg, full_outputs=False: not full_outputs and cfg.fused is True)
-
-    # fused=True gives a distinct jit static-arg key, so no trace cached
-    # by other (unfused) tests can be reused under the monkeypatch.
-    fused_cfg = dataclasses.replace(CFG, fused=True)
-    left, right = small_pair
-    batch_l = np.stack([left, left[:, ::-1]])
-    batch_r = np.stack([right, right[:, ::-1]])
-    out = P.stereo_pipeline_batch(
-        jnp.asarray(batch_l), jnp.asarray(batch_r), fused_cfg)
-    for i in range(2):
-        single = P.stereo_pipeline(
-            jnp.asarray(batch_l[i]), jnp.asarray(batch_r[i]), fused_cfg)
-        for k in ["disparity_left", "disparity_right", "occlusion_filled"]:
-            np.testing.assert_array_equal(
-                np.asarray(out[k][i]), np.asarray(single[k]), err_msg=k)
-
-
-def test_staged_pipeline_identical_to_composed(tsukuba):
-    """cfg.staged=True (separately-jitted stages chained in Python) must
-    produce bit-identical outputs to the one-jit composed pipeline —
-    same executables, different partitioning (VERDICT #1)."""
-    left, right = tsukuba
-    composed = compute_disparity(left, right, CFG, full_outputs=True)
-    staged = compute_disparity(
-        left, right, dataclasses.replace(CFG, staged=True), full_outputs=True)
-    assert set(staged) == set(composed)
-    for key, v in composed.items():
-        np.testing.assert_array_equal(staged[key], v, err_msg=key)
-
-
-def test_staged_pipeline_exact_mode(tsukuba, oracle_tsukuba):
-    left, right = tsukuba
-    out = compute_disparity(
-        left, right, dataclasses.replace(EXACT, staged=True))
-    np.testing.assert_array_equal(
-        out["occlusion_filled"], oracle_tsukuba["occlusion_filled"])
-
-
-def test_use_staged_path_heuristic():
-    from stereo_matching_cuda_tpu.pipeline import use_staged_path
-
-    assert use_staged_path(dataclasses.replace(CFG, staged=True), 10, 10)
-    assert not use_staged_path(dataclasses.replace(CFG, staged=False), 4000, 4000)
-    # auto: big frames only on the TPU backend (tests run on CPU)
-    assert not use_staged_path(CFG, 288, 384)
-
-
-def test_effective_config_big_frame_strategy(monkeypatch):
-    """The big-frame strategy rewrite applies only above the staged
-    threshold and only when every kernel knob is still on auto; any
-    explicit user choice wins.  Inert while _BIG_STRATEGY is None."""
-    from stereo_matching_cuda_tpu import pipeline as P
-
-    monkeypatch.setattr(P, "_BIG_STRATEGY", None)
-    monkeypatch.setattr(P, "_STREAM_PIXELS", None)
-    monkeypatch.setattr(P, "_SMALL_STRATEGY", None)
-    assert P.effective_config(CFG, 288, 384) is CFG          # small
-    assert P.effective_config(CFG, 1992, 3008) is CFG        # None = inert
-    monkeypatch.undo()
-
-    monkeypatch.setattr(P, "_BIG_STRATEGY", {"unroll_max": 8, "y_sum": "roll"})
-    monkeypatch.setattr(P, "_SMALL_STRATEGY", None)
-    assert P.effective_config(CFG, 288, 384) is CFG          # small frame
-    big = P.effective_config(CFG, 1992, 3008)
-    assert big.unroll_max == 8 and big.y_sum == "roll"
-    # explicit user knobs are never overridden (the orthogonal stream
-    # default may still resolve — compare with it normalized away)
-    for user in [dataclasses.replace(CFG, y_sum="mxu"),
-                 dataclasses.replace(CFG, unroll_max=16),
-                 dataclasses.replace(CFG, dual_view=True),
-                 dataclasses.replace(CFG, exact_integral=True)]:
-        got = P.effective_config(user, 1992, 3008)
-        assert dataclasses.replace(got, stream=None) == user
-
-
-def test_effective_config_big_frame_default_live():
-    """The hardware-validated default (fori + roll y-sums for 16-d
-    big frames — BENCH.md) is LIVE: a 6 MP default-config frame gets
-    the overrides, while wide-D configs (already on the fori branch
-    with the measured band-restricted mxu default) keep their kernel
-    knobs."""
-    from stereo_matching_cuda_tpu import pipeline as P
-
-    big = P.effective_config(CFG, 1992, 3008)
-    assert big.unroll_max == 8 and big.y_sum == "roll"
-    # wide-D keeps its unroll knob (already fori) but picks up the
-    # staged-scale vmem96 + roll default (r3_bigtile2)
-    wide = P.effective_config(
-        dataclasses.replace(CFG, d_min=-127, d_max=0), 1992, 3008)
-    assert wide.y_sum == "roll" and wide.unroll_max is None
-    # sub-200k frames get the SMALL strategy instead (r4_tsufori:
-    # single-view fori stream roll vmem32, 0.383 ms at ~6 s compiles)
-    small = P.effective_config(CFG, 288, 384)
-    assert small.unroll_max == 8 and small.y_sum == "roll"
-    assert small.stream is True and small.vmem_mb == 32
-    assert P.effective_config(CFG, 512, 512).y_sum == "roll"
-
-
-def test_effective_config_big_vmem_default():
-    """Staged-scale frames on the fori kernel branch get the measured
-    vmem64 budget (r3_bigtile: 6 MP 24.6 → 20.3 ms, 128 d 303 → 195);
-    explicit vmem_mb wins, unrolled-branch configs (slow big-strip
-    Mosaic compiles) and sub-staged frames are untouched."""
-    from stereo_matching_cuda_tpu import pipeline as P
-
-    assert P._BIG_VMEM_MB == 64 and P._WIDE_VMEM_MB == 96
-    # 6 MP default: strategy rewrite puts it on the fori branch → vmem64
-    big = P.effective_config(CFG, 1992, 3008)
-    assert big.vmem_mb == 64 and big.y_sum == "roll"
-    # wide-D at 6 MP: fori branch, wide range → roll y-sums; streaming
-    # (the r4 default) takes vmem128, the non-stream path keeps vmem96
-    wide = P.effective_config(
-        dataclasses.replace(CFG, d_min=-127, d_max=0), 1992, 3008)
-    assert wide.vmem_mb == 128 and wide.y_sum == "roll" and wide.stream
-    # explicit y_sum survives; the budget still applies
-    wide_mxu = P.effective_config(
-        dataclasses.replace(CFG, d_min=-127, d_max=0, y_sum="mxu"),
-        1992, 3008)
-    assert wide_mxu.vmem_mb == 128 and wide_mxu.y_sum == "mxu"
-    # explicit vmem_mb is never overridden
-    user = dataclasses.replace(wide, vmem_mb=32)
-    assert P.effective_config(user, 1992, 3008).vmem_mb == 32
-    # forced dual_view at 16 d stays on the unrolled branch → no auto
-    # vmem (only the orthogonal stream default resolves)
-    dual = dataclasses.replace(CFG, dual_view=True)
-    assert dataclasses.replace(
-        P.effective_config(dual, 1992, 3008), stream=None) == dual
-    # sub-staged-threshold frames skip the BIG budgets (the mid-band
-    # streaming vmem32 default applies instead — r4_midvmem)
-    assert P.effective_config(CFG, 1024, 1472).vmem_mb == 32
-    # exact/parity mode untouched
-    exact = dataclasses.replace(wide, exact_integral=True)
-    assert P.effective_config(exact, 1992, 3008) is exact
-
-
-def test_effective_config_stream_default():
-    """Frames >= 200k px stream by default (r4 decider: wins at every
-    probed size from 512² up, fori-class compiles — BENCH.md);
-    explicit stream choice and exact mode win; Tsukuba-class frames
-    keep the module default (dual-stream needs the --fast compile).
-    Wide-range streaming frames take the measured vmem128 budget."""
-    from stereo_matching_cuda_tpu import pipeline as P
-
-    assert P._STREAM_PIXELS == P._STRATEGY_PIXELS == 200_000
-    assert P.effective_config(CFG, 1992, 3008).stream is True
-    assert P.effective_config(CFG, 512, 512).stream is True
-    assert P.effective_config(CFG, 1024, 1472).stream is True
-    # mid-band (0.4-2 MP) streaming frames take the measured vmem32
-    # (r4_midvmem: 704x768 -37%, 896x1152 -35%); 512x512 keeps 16 MiB
-    assert P.effective_config(CFG, 1024, 1472).vmem_mb == 32
-    assert P.effective_config(CFG, 704, 768).vmem_mb == 32
-    assert P.effective_config(CFG, 512, 512).vmem_mb is None
-    assert P.effective_config(
-        dataclasses.replace(CFG, stream=False), 704, 768).vmem_mb is None
-    assert P.effective_config(
-        dataclasses.replace(CFG, vmem_mb=16), 704, 768).vmem_mb == 16
-    wide = P.effective_config(
-        dataclasses.replace(CFG, d_min=-127, d_max=0), 1992, 3008)
-    assert wide.stream is True and wide.vmem_mb == 128
-    # explicit stream off survives AND reverts the wide budget to the
-    # non-stream winner
-    off = P.effective_config(
-        dataclasses.replace(CFG, d_min=-127, d_max=0, stream=False),
-        1992, 3008)
-    assert off.stream is False and off.vmem_mb == 96
-    # sub-200k-px frames stream too now, via the small strategy
-    assert P.effective_config(CFG, 288, 384).stream is True
-    # parity mode untouched
-    exact = dataclasses.replace(CFG, exact_integral=True)
-    assert P.effective_config(exact, 1992, 3008) is exact
-
-
-def test_effective_config_small_frame_strategy():
-    """Sub-200k-px frames get the round-4 small strategy (r4_tsufori:
-    single-view fori stream + roll + vmem32 = 0.383 ms Tsukuba at ~6 s
-    chain compiles, vs 0.582 / ~150 s for the old non-stream dual
-    default); any explicit kernel knob opts the frame out."""
-    import dataclasses
-
-    from stereo_matching_cuda_tpu import pipeline as P
-
-    small = P.effective_config(CFG, 288, 384)
-    assert small.unroll_max == 8 and small.y_sum == "roll"
-    assert small.vmem_mb == 32 and small.stream is True
-    # unroll_max=8 < size_d=16 resolves dual_view "auto" to single-view
-    assert not P.use_dual_view(small)
-    # any explicit knob wins (the whole rewrite backs off)
-    for user in [dataclasses.replace(CFG, y_sum="mxu"),
-                 dataclasses.replace(CFG, unroll_max=16),
-                 dataclasses.replace(CFG, dual_view=True),
-                 dataclasses.replace(CFG, vmem_mb=16),
-                 dataclasses.replace(CFG, stream=False),
-                 dataclasses.replace(CFG, exact_integral=True)]:
-        assert P.effective_config(user, 288, 384) == user
-    # wide ranges at small frames are out of scope (unmeasured)
-    wide = dataclasses.replace(CFG, d_min=-127, d_max=0)
-    assert P.effective_config(wide, 288, 384) == wide
-    # narrow ranges (size_d <= 8) back off too: an unroll_max=8
-    # override would leave them on the dual UNROLLED stream kernel
-    # (minutes of Mosaic compile, unmeasured) instead of the measured
-    # fori branch — they keep the previous non-stream dual default
-    narrow = dataclasses.replace(CFG, d_min=-7, d_max=0)
-    assert P.effective_config(narrow, 288, 384) == narrow
-    assert P.effective_config(
-        dataclasses.replace(CFG, d_min=-8, d_max=0), 288, 384
-    ).stream is True  # size_d=9 > 8: smallest range the rewrite covers
-
-
-def test_effective_config_mid_wide_vmem():
-    """Wide-D mid-band budgets (r5_midwide): D<=64 mid frames take
-    vmem32 (measured 2x win at 1 MP); D>64 take the wide-stream budget
-    (the streaming carry buffers cannot fit smaller ones)."""
-    import dataclasses
-
-    from stereo_matching_cuda_tpu.config import StereoConfig
-    from stereo_matching_cuda_tpu.pipeline import effective_config
-
-    e64 = effective_config(StereoConfig(d_min=-63, d_max=0), 768, 1280)
-    assert e64.stream is True and e64.vmem_mb == 32
-    e128 = effective_config(StereoConfig(d_min=-127, d_max=0), 768, 1280)
-    assert e128.stream is True and e128.vmem_mb == 128
-    # the resolved config must actually have a feasible streaming tiling
-    from stereo_matching_cuda_tpu.ops.pallas_guided import stream_fits
-
-    assert stream_fits(e128, 768, 1280)
-    # explicit user vmem choice always wins
-    pinned = effective_config(
-        StereoConfig(d_min=-63, d_max=0, vmem_mb=64), 768, 1280)
-    assert pinned.vmem_mb == 64
-
-
-def test_effective_config_stream_fallback_when_unfittable():
-    """The auto stream flip must never select an impossible kernel: a
-    range whose carry buffers exceed every budget falls back to the
-    non-stream path instead of raising (r5_midwide found a 1 MP
-    128-disparity default-config frame raising pre-gate-fix)."""
-    from stereo_matching_cuda_tpu.config import StereoConfig
-    from stereo_matching_cuda_tpu.pipeline import effective_config
-
-    e = effective_config(StereoConfig(d_min=-511, d_max=0), 600, 800)
-    assert e.stream is False
-    # explicit stream=True is honored (and will surface the picker's
-    # error at kernel-build time rather than being silently rewritten)
-    e2 = effective_config(
-        StereoConfig(d_min=-511, d_max=0, stream=True), 600, 800)
-    assert e2.stream is True
-
-
 def test_compute_disparity_stacked_matches(small_pair):
     """The single-transfer stacked fetch must equal per-key fetches,
     with AND without the int16 compact cast (exact for the
     disparity-map family)."""
-    from stereo_matching_cuda_tpu.pipeline import compute_disparity_stacked
+    from stereo_matching.pipeline import compute_disparity_stacked
 
     left, right = small_pair
     a = compute_disparity_stacked(left, right, CFG)
@@ -383,24 +111,3 @@ def test_compute_disparity_stacked_matches(small_pair):
         assert c[k].dtype == np.float32
     with pytest.raises(ValueError, match="unknown output keys"):
         compute_disparity_stacked(left, right, CFG, keys=("nope",))
-
-
-def test_stream_fits_models_dual_path():
-    """stream_fits must model the kernel path the config actually
-    takes: the dual stream kernel carries ~2x the VMEM of the
-    single-view one, so a config can fit single-view but not dual
-    (review r5)."""
-    from stereo_matching_cuda_tpu.config import StereoConfig
-    from stereo_matching_cuda_tpu.ops.pallas_guided import stream_fits
-
-    # wide-D at a 64 MiB budget: the single-view fori path fits ...
-    single = StereoConfig(d_min=-127, d_max=0, stream=True, vmem_mb=64)
-    assert stream_fits(single, 768, 1280)
-    # ... while the dual path (carries 8*size_d+4 bufs, ~2x) does not
-    # fit until 96 MiB — a single-view check would wrongly approve it
-    dual = StereoConfig(d_min=-127, d_max=0, stream=True, vmem_mb=64,
-                        dual_view=True, unroll_max=128)
-    assert not stream_fits(dual, 768, 1280)
-    dual96 = StereoConfig(d_min=-127, d_max=0, stream=True, vmem_mb=96,
-                          dual_view=True, unroll_max=128)
-    assert stream_fits(dual96, 768, 1280)

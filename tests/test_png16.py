@@ -11,7 +11,7 @@ import zlib
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu.utils import io, png as pypng
+from stereo_matching.utils import io, png as pypng
 
 needs_native = pytest.mark.skipif(
     not io.native_available(), reason="native stereoio not built")
@@ -131,7 +131,7 @@ def test_malformed_chunk_length_rejected(tmp_path):
 
 def test_gt_workflow_16bit(tmp_path, rng):
     """CLI --gt on a 16-bit GT PNG (scaled disparities)."""
-    from stereo_matching_cuda_tpu.metrics import bad_pixel_rate
+    from stereo_matching.metrics import bad_pixel_rate
 
     gt_disp = rng.integers(0, 16, size=(16, 20)).astype(np.float32)
     p = str(tmp_path / "gt16.png")

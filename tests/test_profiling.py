@@ -6,9 +6,10 @@ import os
 
 import numpy as np
 import jax
+import pytest
 
-from stereo_matching_cuda_tpu import profiling
-from stereo_matching_cuda_tpu.config import DEFAULT_CONFIG as CFG
+from stereo_matching import profiling
+from stereo_matching.config import DEFAULT_CONFIG as CFG
 
 
 def _pair(h=24, w=48, seed=7):
@@ -21,29 +22,27 @@ def test_stage_table_structure_and_totals():
     left, right = _pair()
     rows = profiling.stage_table(left, right, CFG, n=2)
     names = [r["stage"] for r in rows]
-    # CPU runs the unfused XLA path (pipeline.use_fused_path is False)
-    assert names == [s for s, _ in profiling.STAGES_UNFUSED] + ["TOTAL"]
+    assert names == profiling.STAGES + ["TOTAL"]
     # timings are wall-clock and noisy on CPU — assert structure only
     for r in rows:
         assert isinstance(r["ms"], float)
         assert r["ms"] >= 0.0 and np.isfinite(r["ms"])
+    assert rows[-1]["ms"] == pytest.approx(sum(r["ms"] for r in rows[:-1]))
 
 
-def test_stage_table_staged_path():
-    """Frames the product routes through the staged path are profiled
-    per-stage (their composed prefix graph would hit the big-frame XLA
-    compile pathology — BENCH.md); forced here via cfg.staged=True."""
+def test_stage_table_wide_range_chunked():
+    """A chunked wide-range config (the d_chunk path of the guided
+    stage) profiles through the same stages."""
     import dataclasses
 
     left, right = _pair()
-    cfg = dataclasses.replace(CFG, staged=True)
-    rows = profiling.stage_table(left, right, cfg, n=2)
-    names = [r["stage"] for r in rows]
-    assert names[0] == "rgb_to_grayscale x2"
-    assert names[1] == "cost+guided_filter+WTA x2"   # CPU = unfused
-    assert names[-1].startswith("TOTAL")
+    cfg = dataclasses.replace(CFG, d_min=-31, d_max=0, d_chunk=8)
+    rows = profiling.stage_table(left, right, cfg, n=1)
+    assert [r["stage"] for r in rows][:-1] == profiling.STAGES
     for r in rows:
         assert r["ms"] >= 0.0 and np.isfinite(r["ms"])
+    with pytest.raises(ValueError):
+        profiling.stage_table(left, right, cfg, n=0)
 
 
 def test_print_stage_table_formatting():
@@ -67,16 +66,14 @@ def test_trace_context_writes_profile(tmp_path):
 
 
 def test_batch_stage_table_structure():
-    """batch_stage_table profiles the batched (lax.map) structure and
+    """batch_stage_table profiles the batched (vmap) structure and
     reports per-frame ms; rejects non-batched input."""
-    import pytest
-
     left, right = _pair()
     bl = np.stack([left] * 3)
     br = np.stack([right] * 3)
     rows = profiling.batch_stage_table(bl, br, CFG, n=2)
     names = [r["stage"] for r in rows]
-    assert names[:-1] == [s for s, _ in profiling.STAGES_UNFUSED]
+    assert names[:-1] == profiling.STAGES
     assert names[-1] == "TOTAL (per frame, B=3)"
     for r in rows:
         assert r["ms"] >= 0.0 and np.isfinite(r["ms"])

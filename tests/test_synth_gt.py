@@ -3,7 +3,7 @@
 The reference ships no ground truth (SURVEY.md §6: its data/ holds only
 its own outputs), so BASELINE.json's bad-2.0 metric had nothing real to
 score against.  tests/data/synthgt/scene0 is a rendered layered scene
-(stereo_matching_cuda_tpu/utils/synth.py) whose integer disparity field
+(stereo_matching/utils/synth.py) whose integer disparity field
 and occlusion set are exact by construction; these tests validate the
 full --eval/--gt metric chain (sign convention, occlusion exclusion,
 calib ndisp) against it and pin the accuracy of every production mode.
@@ -16,9 +16,9 @@ import sys
 import numpy as np
 import pytest
 
-from stereo_matching_cuda_tpu.config import StereoConfig
-from stereo_matching_cuda_tpu.metrics import bad_pixel_rate, end_point_error
-from stereo_matching_cuda_tpu.utils.synth import make_scene
+from stereo_matching.config import StereoConfig
+from stereo_matching.metrics import bad_pixel_rate, end_point_error
+from stereo_matching.utils.synth import make_scene
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "synthgt")
 SCENE0 = os.path.join(FIXTURE, "scene0")
@@ -59,8 +59,8 @@ def test_generator_geometry(scene):
 def test_fixture_matches_generator(scene):
     """The committed fixture is exactly make_scene() — guards against
     silent drift between the generator and the checked-in goldens."""
-    from stereo_matching_cuda_tpu.utils.io import read_png
-    from stereo_matching_cuda_tpu.utils.pnm import read_pfm
+    from stereo_matching.utils.io import read_png
+    from stereo_matching.utils.pnm import read_pfm
 
     np.testing.assert_array_equal(
         read_png(os.path.join(SCENE0, "im0.png")), scene["left"])
@@ -75,7 +75,7 @@ def test_pipeline_accuracy_vs_true_gt(scene, mode):
     """bad-2.0 on non-occluded pixels must stay under 2% (measured
     ~0.57%) and EPE under 0.2 px (measured ~0.047) — real accuracy, not
     parity-vs-self."""
-    from stereo_matching_cuda_tpu.pipeline import compute_disparity
+    from stereo_matching.pipeline import compute_disparity
 
     cfg = StereoConfig(exact_integral=(mode == "exact"))
     out = compute_disparity(scene["left"], scene["right"], cfg)
@@ -90,7 +90,7 @@ def test_sharded_accuracy_vs_true_gt(scene):
     """The multi-chip path must hold the same true-GT accuracy class."""
     import jax
 
-    from stereo_matching_cuda_tpu.parallel import (
+    from stereo_matching.parallel import (
         make_mesh, sharded_stereo_pipeline)
 
     if len(jax.devices()) < 8:
@@ -107,7 +107,7 @@ def test_occlusion_detection_vs_true_geometry(scene):
     """The LR-check's occlusion set vs the scene's geometric truth:
     require >70% recall of true occlusions and <10% false-positive rate
     (the classic LR check over-flags near boundaries; this bounds it)."""
-    from stereo_matching_cuda_tpu.pipeline import compute_disparity
+    from stereo_matching.pipeline import compute_disparity
 
     out = compute_disparity(scene["left"], scene["right"], StereoConfig())
     cfg = StereoConfig()
@@ -126,7 +126,7 @@ def test_cli_eval_on_fixture(tmp_path):
 
     env = dict(os.environ)
     r = subprocess.run(
-        [sys.executable, "-m", "stereo_matching_cuda_tpu",
+        [sys.executable, "-m", "stereo_matching",
          "--eval", FIXTURE, "--json"],
         capture_output=True, text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -141,7 +141,7 @@ def test_eval_dataset_two_scenes_aggregate():
     """evaluate_dataset over the 2-scene fixture: the wide scene's
     calib.txt (ndisp=64) must override the search range per scene, and
     the aggregate must report both conventions over 2 scored scenes."""
-    from stereo_matching_cuda_tpu.evaluate import evaluate_dataset
+    from stereo_matching.evaluate import evaluate_dataset
 
     rep = evaluate_dataset(FIXTURE, StereoConfig())
     agg = rep["aggregate"]
@@ -161,8 +161,8 @@ def test_eval_zero_valid_gt_not_scored(tmp_path):
     0.0 into the aggregate (review r5)."""
     import shutil
 
-    from stereo_matching_cuda_tpu.evaluate import evaluate_dataset
-    from stereo_matching_cuda_tpu.utils.pnm import write_pfm
+    from stereo_matching.evaluate import evaluate_dataset
+    from stereo_matching.utils.pnm import write_pfm
 
     scene = tmp_path / "zero_gt"
     scene.mkdir()
@@ -183,7 +183,7 @@ def test_eval_corrupt_scene_isolated(tmp_path):
     beyond (OSError, ValueError) on mangled headers (review r5)."""
     import shutil
 
-    from stereo_matching_cuda_tpu.evaluate import evaluate_dataset
+    from stereo_matching.evaluate import evaluate_dataset
 
     good = tmp_path / "good"
     good.mkdir()
